@@ -1,10 +1,10 @@
-"""sla_tpu — TPU-native lossless audio codec framework.
+"""sla_tpu — a JAX lossless audio codec framework.
 
 A ground-up JAX/XLA rebuild of the SLA (Solitary Lossless Audio) codec:
 same container format and bit-exact interoperability with the reference C
 implementation, with the per-sample filter stack re-architected as batched
-device scans over a (blocks x channels) grid and the bit-serial entropy
-stage on host.
+device stages over a (blocks x channels) grid (GPU kernels on a GPU,
+`lax.scan` elsewhere) and the bit-serial entropy stage on host.
 """
 
 import os as _os
@@ -33,21 +33,27 @@ if not _os.environ.get("SLA_TPU_NO_MALLOPT"):
 # (SLAPredictor.c:1040-1085); enable wide types before any tracing.
 _jax.config.update("jax_enable_x64", True)
 
+
+def compile_cache_dir() -> str | None:
+    """Where the persistent compilation cache goes: None when
+    JAX_COMPILATION_CACHE_DIR is set (JAX reads it itself and the program
+    sets no path), else a fixed directory inside the checkout. The path is
+    part of the cache key, so it must not move between runs."""
+    if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache",
+    )
+
+
 # Persistent compilation cache: the filter-stage programs are recompiled for
 # every (batch, block-length) shape; caching them across processes makes
 # repeated CLI/test invocations start warm. Opt out with SLA_TPU_NO_JIT_CACHE.
 if not _os.environ.get("SLA_TPU_NO_JIT_CACHE"):
-    try:
-        _jax.config.update(
-            "jax_compilation_cache_dir",
-            _os.environ.get(
-                "SLA_TPU_JIT_CACHE_DIR",
-                _os.path.join(_os.path.expanduser("~"), ".cache", "sla_tpu_jit"),
-            ),
-        )
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:  # unsupported on exotic runtimes — caching is optional
-        pass
+    if compile_cache_dir() is not None:
+        _jax.config.update("jax_compilation_cache_dir", compile_cache_dir())
+    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 from .constants import (  # noqa: E402,F401
     SLA_FORMAT_VERSION,

@@ -44,7 +44,7 @@ def _make_spec() -> list[OptionSpec]:
         OptionSpec("v", "version", False, "Show version information"),
         OptionSpec("s", "streaming", False, "Use streaming decode(for debug; 120fps)"),
         OptionSpec("t", "trace", True,
-                   "Write a TPU profiler trace to the given directory"),
+                   "Write a JAX profiler trace to the given directory"),
         OptionSpec("b", "batch", False,
                    "Corpus mode: INPUT is a directory of WAVs (-e) or SLAs (-d), "
                    "OUTPUT a directory"),

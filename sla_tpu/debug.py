@@ -22,9 +22,9 @@ Known exclusions (structural, documented rather than solved):
 * checkify does not functionalize through `shard_map` — assert mode
   downgrades the mesh backend to the single-device checkified scan
   (encoder backend selection; __graft_entry__ mirrors this).
-* Pallas kernels cannot carry `checkify.check` (no Mosaic lowering) —
-  assert mode forces the scan path, which computes bit-identical values,
-  so the checked run still validates the numbers the Pallas kernels would
+* The GPU kernels (kernels/gpu_filters.py) cannot carry `checkify.check`
+  — assert mode forces the scan path, which computes bit-identical values,
+  so the checked run still validates the numbers the kernels would
   produce; only the kernel *implementation* runs unchecked.
 """
 

@@ -1,4 +1,4 @@
-"""SLA decoder: host entropy stage + TPU-batched synthesis pipeline.
+"""SLA decoder: host entropy stage + batched device synthesis pipeline.
 
 Decode strategy (vs. the strictly sequential reference, SLADecoder.c:660-732):
 
@@ -50,12 +50,12 @@ class DecoderConfig:
     max_lms_order_per_filter: int = 40
     enable_crc_check: bool = True
     verbose: bool = False
-    backend: str = "auto"  # 'auto' | 'device' | 'host' (see EncoderConfig)
-    # on-chip entropy decode (mirror of EncoderConfig.device_entropy): when
-    # the synthesis batch runs on the device/mesh backend, the recursive-
-    # Rice payloads decode there too (rice_device.rice_decode_blocks), so
-    # the device decode path is not host-entropy-bound. 'off' disables;
-    # SLA_TPU_DEVICE_ENTROPY forces it on any backend.
+    backend: str = "auto"  # 'auto' | 'device' | 'mesh' | 'host' (see EncoderConfig)
+    # on-chip entropy decode (mirror of EncoderConfig.device_entropy):
+    # 'on' decodes the recursive-Rice payloads on the device
+    # (rice_device.rice_decode_blocks) straight into the synthesis batch;
+    # 'auto' and 'off' keep the host coder, which measured faster end to
+    # end on an H100 (PERF.md). SLA_TPU_DEVICE_ENTROPY overrides it.
     device_entropy: str = "auto"
 
 
@@ -443,16 +443,6 @@ class Decoder:
         from .pipeline import select_backend
 
         return select_backend(self.config.backend, row_samples)
-
-    def _device_entropy_on(self, backend: str) -> bool:
-        """Decode twin of Encoder._device_entropy_on: on-chip symbol decode
-        whenever the synthesis batch runs on the device or mesh backend;
-        SLA_TPU_DEVICE_ENTROPY forces it regardless (the batch then lands
-        on host once for the host synthesis cascade — see _decode_blocks).
-        One shared definition with the encoder: pipeline.device_entropy_on."""
-        from .pipeline import device_entropy_on
-
-        return device_entropy_on(self.config, backend)
 
     def _device_entropy_group(
         self,
@@ -870,7 +860,9 @@ class Decoder:
                 if comp:
                     rs = sum(grp[i].num_samples for i in comp) * C
                     backend = self._select_backend(rs)
-                    if self._device_entropy_on(backend):
+                    from .pipeline import device_entropy_on
+
+                    if device_entropy_on(self.config):
                         # on-chip symbol decode straight into the (rows, L)
                         # synthesis layout; the batch stays device-resident
                         # for the synthesis stage (no host round trip)
@@ -1166,45 +1158,15 @@ class Decoder:
                 ltm3.reshape(-1, max(T, 1))[:nrows] = ltm[:nrows]
                 d_res, d_coef, d_ltm = shard_batch(mesh, res3, coef3, ltm3)
                 d_pitch = shard_batch(mesh, pitch3[..., None])[0][..., 0]
-                from .parallel import (
-                    mesh_window_plans,
-                    sharded_decode_step_pallas,
-                )
-                from .parallel.sharding import _mesh_use_pallas
                 from .pipeline import _longterm_chunk
 
-                # TPU mesh: run the fused Pallas cascade per shard (the
-                # same windowed/wide kernels as the one-chip path) when
-                # every shard's lag band admits the window plan
-                plans = (
-                    mesh_window_plans(pitch3, T, mesh, L)
-                    if (_mesh_use_pallas(mesh) and L % 2048 == 0
-                        and p >= 1 and ep.lms_order_per_filter >= 1)
-                    else None
-                )
-                if plans is not None:
-                    d_hi8s, = shard_batch(mesh, plans["hi8s"])
-                    d_order = shard_batch(mesh, plans["order"])[0]
-                    synth = np.asarray(
-                        sharded_decode_step_pallas(
-                            d_res, d_coef, d_pitch, d_ltm, d_hi8s, d_order,
-                            p, T, ep.lms_order_per_filter, mesh,
-                            lt_ring=plans["lt_ring"],
-                            lt_win=plans["lt_win"],
-                            wide=plans["wide"],
-                        )
-                    ).reshape(-1, L)[: len(comp_idx) * C]
-                else:
-                    synth = np.asarray(
-                        sharded_decode_step(
-                            d_res, d_coef, d_pitch, d_ltm, p, T,
-                            ep.lms_order_per_filter, mesh,
-                            lt_chunk=_longterm_chunk(
-                                pitch, T, L,
-                                platform=mesh.devices.flat[0].platform,
-                            ),
-                        )
-                    ).reshape(-1, L)[: len(comp_idx) * C]
+                synth = np.asarray(
+                    sharded_decode_step(
+                        d_res, d_coef, d_pitch, d_ltm, p, T,
+                        ep.lms_order_per_filter, mesh,
+                        lt_chunk=_longterm_chunk(pitch, T, L),
+                    )
+                ).reshape(-1, L)[: len(comp_idx) * C]
             elif backend == "host":
                 synth = native.synth_rows(
                     residual, coef, pitch, ltm, T, ep.lms_order_per_filter, lengths

@@ -1,4 +1,4 @@
-"""SLA encoder: TPU-batched analysis/filter pipeline + host entropy stage.
+"""SLA encoder: batched analysis/filter pipeline + host entropy stage.
 
 API mirrors the reference encoder handle (src/SLAEncoder.c): create with
 capacity config, set wave format / encode parameter, then `encode_whole`.
@@ -56,11 +56,11 @@ class EncoderConfig:
     """Create-time capacity maxima (SLAEncoder.h:14-21).
 
     `backend` selects where the per-sample filter cascade runs:
-    'device' = batched JAX pipeline (TPU hot path), 'host' = native C++
-    interleaved cascade, 'mesh' = rows sharded across every device on a
-    ('blocks','channels') jax.sharding.Mesh (multi-chip), 'auto' = device
-    for batches big enough to amortize dispatch + transfer, host otherwise
-    (threshold in row-samples via SLA_TPU_DEVICE_THRESHOLD)."""
+    'device' = batched JAX pipeline (GPU kernels on a GPU), 'host' = native
+    C++ interleaved cascade, 'mesh' = rows sharded across every device on a
+    ('blocks','channels') jax.sharding.Mesh (several GPUs), 'auto' = device
+    on a live GPU for batches past pipeline.DEVICE_MIN_ROW_SAMPLES, host
+    otherwise (SLA_TPU_DEVICE_THRESHOLD overrides the threshold)."""
 
     max_num_channels: int = 8
     max_num_block_samples: int = 16384
@@ -74,11 +74,11 @@ class EncoderConfig:
     # equivalent). Decode runs 6-9x faster than encode here, so the
     # overhead is a fraction of the encode cost.
     verify: bool = False
-    # entropy symbol computation on-device: 'auto' = whenever the filter
-    # batch already runs on the device/mesh backend (the residual is
-    # on-chip; the host keeps only the branch-free pack — rice_device.py),
-    # 'off' = always host entropy. SLA_TPU_DEVICE_ENTROPY=1 forces the
-    # device coder even for host-backend blocks (test/bench knob).
+    # entropy symbol computation on-device: 'on' = the on-chip symbol
+    # coder (rice_device.py; the host keeps only the branch-free pack),
+    # 'auto' / 'off' = the host coder, which measured faster end to end on
+    # an H100 (PERF.md). SLA_TPU_DEVICE_ENTROPY=1 forces the device coder
+    # on any backend (test/bench knob).
     device_entropy: str = "auto"
 
 
@@ -957,17 +957,7 @@ class Encoder:
             coefs3 = np.zeros((NBb, NC, p), dtype=np.int32)
             coefs3.reshape(-1, p)[:nrows] = coefs[:nrows]
             d_batch, d_coefs = shard_batch(mesh, batch3, coefs3)
-            from .parallel import sharded_encode_stage1_pallas
-            from .parallel.sharding import _mesh_use_pallas
-
-            if _mesh_use_pallas(mesh) and L % 2048 == 0 and p >= 1:
-                # TPU mesh: per-shard Pallas lattice (wide when the local
-                # row count admits it); bit-identical to the scan body
-                res1_dev = sharded_encode_stage1_pallas(
-                    d_batch, d_coefs, p, mesh
-                )
-            else:
-                res1_dev = sharded_encode_stage1(d_batch, d_coefs, p, mesh)
+            res1_dev = sharded_encode_stage1(d_batch, d_coefs, p, mesh)
             res1_flat = np.asarray(res1_dev).reshape(-1, L)
             if res1_flat.shape[0] >= B:
                 residual1 = res1_flat[:B]
@@ -1044,33 +1034,9 @@ class Encoder:
             ltm3.reshape(-1, max(T, 1))[:nrows] = ltm[:nrows]
             d_pitch = shard_batch(mesh, pitch3)[0]  # 2-D: P(BLOCK, CHANNEL)
             d_ltm = shard_batch(mesh, ltm3)[0]
-            from .parallel import (
-                mesh_window_plans,
-                sharded_encode_stage2_pallas,
+            res2_full = sharded_encode_stage2(
+                res1_dev, d_pitch, d_ltm, T, ep.lms_order_per_filter, mesh
             )
-            from .parallel.sharding import _mesh_use_pallas
-
-            plans = (
-                mesh_window_plans(pitch3, T, mesh, L)
-                if (_mesh_use_pallas(mesh) and L % 2048 == 0
-                    and ep.lms_order_per_filter >= 1)
-                else None
-            )
-            if plans is not None:
-                # TPU mesh: merged windowed stage 2 per shard
-                d_hi8s, = shard_batch(mesh, plans["hi8s"])
-                d_order = shard_batch(mesh, plans["order"])[0]
-                res2_full = sharded_encode_stage2_pallas(
-                    res1_dev, d_pitch, d_ltm, d_hi8s, d_order, T,
-                    ep.lms_order_per_filter, mesh,
-                    lt_ring=plans["lt_ring"],
-                    lt_win=plans["lt_win"],
-                    wide=plans["wide"],
-                )
-            else:
-                res2_full = sharded_encode_stage2(
-                    res1_dev, d_pitch, d_ltm, T, ep.lms_order_per_filter, mesh
-                )
             res2_dev = res2_full.reshape(NBb * NC, -1)  # device-side rows
             res2_flat = np.asarray(res2_full).reshape(-1, L)
             if res2_flat.shape[0] >= B:
@@ -1111,23 +1077,15 @@ class Encoder:
                 if init_all is not None
                 else rice.calculate_initial_params(list(pl.residual))
             )
-        if init_all is not None and self._device_entropy_on(backend):
+        from .pipeline import device_entropy_on
+
+        if init_all is not None and device_entropy_on(self.config):
             # pass the LIVE device residual when the filter batch ran
-            # on-chip — the symbol pass reads it from HBM with no re-upload
+            # on-chip — the symbol pass reads it from device memory with no re-upload
             # over PCIe (the host copy is only for the part-less fallbacks)
             self._attach_device_parts(
                 rows_meta, residual2 if res2_dev is None else res2_dev, init_all
             )
-
-    def _device_entropy_on(self, backend: str) -> bool:
-        """Device entropy policy (VERDICT r2 #7): on-chip symbol coding is
-        the default whenever the filter batch already ran on the device or
-        mesh backend (the residual is on-chip and the host keeps only the
-        branch-free pack); SLA_TPU_DEVICE_ENTROPY forces it regardless.
-        One shared definition with the decoder: pipeline.device_entropy_on."""
-        from .pipeline import device_entropy_on
-
-        return device_entropy_on(self.config, backend)
 
     def _attach_device_parts(self, rows_meta, residual2, init_all) -> None:
         """ONE batched on-device Rice symbol pass for the whole filter

@@ -1,7 +1,7 @@
 """Pure-Python fallbacks for the streaming decoder's native hot path.
 
 The reference streaming decoder is portable C with no hard dependency on a
-toolchain (src/SLADecoder.c:752-1123); this module gives the TPU rebuild the
+toolchain (src/SLADecoder.c:752-1123); this module gives the rebuild the
 same property: when the native library is unavailable (no g++, build
 failure, SLA_TPU_NO_NATIVE=1), `StreamingDecoder` transparently uses these
 implementations. They are slow per sample but bit-exact to the native ones:

@@ -14,7 +14,7 @@ synthesize (per sample):
             then b[k] = b_prev[k-1] - ((c[k]*f_partial_k + 16384) >> 15)
     out = f ; b[0] = f
 
-TPU-native re-derivation: within one sample, every multiply uses *previous*
+Batched re-derivation: within one sample, every multiply uses *previous*
 state, so the order loop collapses into vector ops plus one cumulative sum:
 
 predict:    m = (c*b_prev + h) >> 15            (vector over k)
@@ -23,7 +23,7 @@ predict:    m = (c*b_prev + h) >> 15            (vector over k)
 synthesize: m as above; f after stage k = r + suffix_sum(m)[k]
             b[k] = b_prev[k-1] - ((c[k]*(r + suffix_sum(m)[k]) + h) >> 15)
 
-so one scan step is a handful of VPU ops on a (batch, order) tile —
+so one scan step is a handful of vector ops on a (batch, order) tile —
 throughput comes from the (blocks x channels) batch width, exactly the axes
 the serial C loops iterate (SLAEncoder.c:531, :846). The sample loop itself
 must stay sequential: fixed-point rounding does not re-associate.

@@ -21,7 +21,7 @@ IIR-buffer insertion need masking.
 
 The per-sample dependence is nonlinear (data-dependent coefficient update),
 so the scan is irreducible; throughput comes from the (blocks x channels)
-batch axis, each step being a few VPU ops on (B, M) tiles.
+batch axis, each step being a few vector ops on (B, M) tiles.
 """
 
 from __future__ import annotations

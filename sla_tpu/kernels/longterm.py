@@ -18,7 +18,7 @@ coefficient are zero, so the Q31 accumulation reduces exactly to
 
 with q15 = coef >> 16 — one 64-bit dot product of <= 5 terms.
 
-TPU shape: *prediction* history is the input signal, so the whole filter is
+Batched shape: *prediction* history is the input signal, so the whole filter is
 a short FIR — fully vectorized, no scan. *Synthesis* is recurrent (history is
 the output); it runs as a scan carrying a (B, max_delay) ring, with the tap
 pattern pre-scattered into a dense kernel so each step is one masked dot.
@@ -79,7 +79,7 @@ def _delay_rows(x: jnp.ndarray, delay: jnp.ndarray) -> jnp.ndarray:
 
     Realized as a vmapped dynamic slice of the zero-padded row: the
     row-constant shift makes the gather formulation (take_along_axis)
-    needless, and on TPU that gather is ~50x slower than these slices."""
+    needless."""
     B, N = x.shape
     pad = jnp.concatenate([jnp.zeros((B, _MAX_DELAY), x.dtype), x], axis=1)
     start = (_MAX_DELAY - delay).astype(jnp.int32)  # delay <= _MAX_DELAY
@@ -120,8 +120,8 @@ def longterm_synthesize(
         # Single-tap fast path (the default preset): the dense history dot
         # reduces to an int32 one-hot select — the sum has exactly one
         # nonzero term, so it is exact in int32, and the only int64
-        # arithmetic is the q * sample product per row. On TPU this avoids
-        # the emulated-int64 dense dot entirely. Bit-identical.
+        # arithmetic is the q * sample product per row — no int64 dense
+        # dot. Bit-identical.
         d_idx = jnp.arange(D, dtype=jnp.int32)[None, :]
         mask = (d_idx == (D - max_delay)[:, None]).astype(jnp.int32)  # (B, D)
         active_row1 = pitch > 0

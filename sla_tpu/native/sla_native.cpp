@@ -3,7 +3,7 @@
 // sla_tpu/bitio.py (which interoperate bit-exactly with the reference
 // format, see reference src/SLACoder.c, src/SLABitStream.c).
 //
-// This is the host-side half of the TPU split: the device computes whole
+// This is the host-side half of the host/device split: the device computes whole
 // residual batches, this module turns them into (or parses them from) the
 // bit-serial container payload. Compiled with g++ -O3 into a shared library
 // loaded via ctypes (no pybind11 in the image).

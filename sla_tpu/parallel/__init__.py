@@ -3,13 +3,9 @@ from .sharding import (  # noqa: F401
     CHANNEL_AXIS,
     batch_sharding,
     make_mesh,
-    mesh_window_plans,
     shard_batch,
     sharded_decode_step,
-    sharded_decode_step_pallas,
     sharded_encode_stage1,
-    sharded_encode_stage1_pallas,
     sharded_encode_stage2,
-    sharded_encode_stage2_pallas,
     sharded_encode_step,
 )

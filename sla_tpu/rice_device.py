@@ -20,12 +20,14 @@ uint32 even for pathological residuals:
 
 The fixed-point parameters are uint64 in the reference; values stay well
 under 2^53, so the scan carries them as float64-free uint64 under
-jax_enable_x64 (XLA emulates 64-bit integers on TPU — acceptable for this
-stage, whose arithmetic is a handful of ops per symbol).
+jax_enable_x64 (a handful of integer ops per symbol).
 
-Byte-identity with the host coder is asserted in tests; the encoder uses
-this path when SLA_TPU_DEVICE_ENTROPY=1 and the filter backend is the
-device (it shares the residual already resident in HBM).
+The coder is a plain `lax.scan` that XLA compiles; on an H100 it made
+device encode and decode several times slower end to end than the native
+host coder (PERF.md), so the codec uses it only when asked
+(EncoderConfig/DecoderConfig device_entropy='on', or
+SLA_TPU_DEVICE_ENTROPY=1). Byte-identity with the host coder is asserted
+in tests; it reads the residual already resident in device memory.
 """
 
 from __future__ import annotations

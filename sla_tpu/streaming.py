@@ -8,7 +8,7 @@ reset only at block starts (the resumability invariant, SLADecoder.c:637-639).
 
 The per-chunk synthesis runs through the native C++ filter chain
 (sla_native.cpp `sla_synth_chunk`) with explicit carried state — the
-low-latency host path of the TPU split (the batched device path is for bulk
+low-latency host path of the host/device split (the batched device path is for bulk
 decode; a ~370-sample tick is latency-bound, not throughput-bound).
 """
 

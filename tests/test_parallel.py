@@ -182,13 +182,14 @@ def test_assert_mode_demotes_mesh_encoder(monkeypatch):
 @needs_8
 @pytest.mark.parametrize("C", [2, 6])
 def test_mesh_decode_device_entropy_contrast(C):
-    """backend='mesh' decodes the recursive-Rice payloads ON the mesh by
-    default (DecoderConfig.device_entropy='auto'); pin both sides of the
-    contrast — on-mesh entropy and forced host entropy must produce the
-    exact PCM."""
+    """backend='mesh' with DecoderConfig.device_entropy='on' decodes the
+    recursive-Rice payloads ON the mesh; pin both sides of the contrast —
+    on-mesh entropy and host entropy must produce the exact PCM."""
     pcm = _pcm(C, 30000, seed=40 + C)
     blob = _encode(pcm, "host")
-    _, on = sla.Decoder(sla.DecoderConfig(backend="mesh")).decode_whole(blob)
+    _, on = sla.Decoder(
+        sla.DecoderConfig(backend="mesh", device_entropy="on")
+    ).decode_whole(blob)
     _, off = sla.Decoder(
         sla.DecoderConfig(backend="mesh", device_entropy="off")
     ).decode_whole(blob)
@@ -279,77 +280,45 @@ def test_mesh_segmented_long_stream_decode(monkeypatch):
     assert np.array_equal(out, pcm)
 
 
-# ---- Pallas shard_map bodies (TPU mesh path; interpret-mode on CPU) ---------
-
 @needs_8
 @pytest.mark.parametrize("channel_parallel,NC", [(1, 1), (2, 2)])
-def test_sharded_pallas_bodies_match_scan(channel_parallel, NC, monkeypatch):
-    """The Pallas mesh bodies (per-shard fused windowed kernels with
-    host-computed per-shard window plans) must match the scan shard_map
-    bodies bit for bit, across block-only and channel-split meshes."""
-    import sla_tpu.kernels.pallas_filters as pf
-    from sla_tpu.parallel import (
-        mesh_window_plans,
-        sharded_decode_step_pallas,
-        sharded_encode_stage1,
-        sharded_encode_stage1_pallas,
-        sharded_encode_stage2,
-        sharded_encode_stage2_pallas,
-    )
-
-    for name in ("fused_synth_tl", "fused_stage2_tl", "lattice_filter_tl"):
-        orig = getattr(pf, name)
-
-        def interp(*a, _o=orig, **k):
-            k["interpret"] = True
-            return _o(*a, **k)
-
-        monkeypatch.setattr(pf, name, interp)
+def test_mesh_bodies_gpu_kernels_match_scan(channel_parallel, NC, monkeypatch):
+    """On a GPU mesh every shard runs the single-device GPU kernels: with
+    the platform patched to 'gpu' and the kernels in interpret mode, the
+    sharded stages must equal the scan bodies bit for bit, across
+    block-only and channel-split meshes."""
+    from sla_tpu import pipeline
+    from sla_tpu.kernels import gpu_filters as g
+    from sla_tpu.parallel import sharded_encode_stage1, sharded_encode_stage2
 
     mesh = make_mesh(jax.devices()[:8], channel_parallel=channel_parallel)
-    p, T, M = 8, 1, 4
-    NB, L = 3 * mesh.shape["blocks"], 2048
-    rng = np.random.default_rng(7)
+    p, T, M = 8, 3, 4
+    NB, L = 2 * mesh.shape["blocks"], 256
     data, coef, _, ltm = _inputs(NB, NC, L, p, T, seed=11)
-    pitch = rng.integers(150, 250, (NB, NC), dtype=np.int32)
-    pitch[0, 0] = 0  # inactive row inside an otherwise-active shard
-
-    plans = mesh_window_plans(pitch, T, mesh, L)
-    assert plans is not None and not plans["wide"]
+    pitch = np.random.default_rng(7).integers(3, 200, (NB, NC), dtype=np.int32)
+    pitch[0, 0] = 0  # long-term off inside an otherwise-active shard
     d_data, d_coef, d_ltm = shard_batch(mesh, data, coef, ltm)
-    d_pitch = shard_batch(mesh, pitch[..., None])[0][..., 0]
-    d_hi8s, = shard_batch(mesh, plans["hi8s"])
-    d_order = shard_batch(mesh, plans["order"][..., None])[0][..., 0]
+    d_pitch = shard_batch(mesh, pitch)[0]
 
-    r1 = sharded_encode_stage1_pallas(d_data, d_coef, p, mesh)
     r1_ref = sharded_encode_stage1(d_data, d_coef, p, mesh)
-    assert np.array_equal(np.asarray(r1), np.asarray(r1_ref))
-
-    kw = dict(lt_ring=plans["lt_ring"], lt_win=plans["lt_win"],
-              wide=plans["wide"])
-    r2 = sharded_encode_stage2_pallas(
-        r1, d_pitch, d_ltm, d_hi8s, d_order, T, M, mesh, **kw
-    )
     r2_ref = sharded_encode_stage2(r1_ref, d_pitch, d_ltm, T, M, mesh)
+
+    for name in ("stage1", "stage2", "synth"):
+        orig = getattr(g, name)
+
+        def interp(*a, _o=orig, **k):
+            return _o(*a, interpret=True, **k)
+
+        monkeypatch.setattr(g, name, interp)
+    monkeypatch.setattr(pipeline, "filter_impl", lambda platform: "kernel")
+    monkeypatch.setattr(pipeline, "DISPATCH", pipeline.DISPATCH.__class__())
+
+    r1 = sharded_encode_stage1(d_data, d_coef, p, mesh)
+    assert np.array_equal(np.asarray(r1), np.asarray(r1_ref))
+    r2 = sharded_encode_stage2(r1, d_pitch, d_ltm, T, M, mesh)
     assert np.array_equal(np.asarray(r2), np.asarray(r2_ref))
-
-    # decode mirror: the Pallas sharded synthesis inverts the residual
-    pcm = sharded_decode_step_pallas(
-        r2, d_coef, d_pitch, d_ltm, d_hi8s, d_order, p, T, M, mesh, **kw
-    )
+    pcm = sharded_decode_step(r2, d_coef, d_pitch, d_ltm, p, T, M, mesh)
     assert np.array_equal(np.asarray(pcm), data)
-
-
-def test_mesh_window_plans_fallbacks():
-    """mesh_window_plans must return None for taps=0, all-inactive
-    batches, and indivisible layouts — the scan bodies stay the path."""
-    from sla_tpu.parallel import mesh_window_plans
-
-    mesh = make_mesh(jax.devices()[:8], channel_parallel=1)
-    pitch = np.full((16, 2), 180, dtype=np.int32)
-    assert mesh_window_plans(pitch, 0, mesh, 2048) is None
-    assert mesh_window_plans(np.zeros((16, 2), np.int32), 1, mesh, 2048) is None
-    assert mesh_window_plans(pitch[:15], 1, mesh, 2048) is None  # 15 % 8
-    plans = mesh_window_plans(pitch, 1, mesh, 2048)
-    assert plans is not None and plans["order"].shape == (16, 2)
-    assert plans["hi8s"].shape == (8, 1, 1)
+    assert dict(pipeline.DISPATCH) == {
+        ("stage1", "kernel"): 1, ("stage2", "kernel"): 1, ("synth", "kernel"): 1,
+    }
